@@ -17,7 +17,6 @@ from folve_tpu.engine.stream import (
     chunk_step,
     init_state,
     reset_state,
-    serving_chunk_step,
     shared_filter_chunk_step,
 )
 
@@ -37,6 +36,5 @@ __all__ = [
     "chunk_step",
     "init_state",
     "reset_state",
-    "serving_chunk_step",
     "shared_filter_chunk_step",
 ]

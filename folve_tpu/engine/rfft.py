@@ -1,13 +1,12 @@
-"""Matmul FFT — real-arithmetic FFT for TPUs without complex support.
+"""Matmul FFT — the DFT as real-arithmetic dense matmuls.
 
-The serving TPU backend (and the MXU generally) has no complex dtype:
-``jnp.fft`` and complex multiplies are unavailable on the target chip.
 This module implements the DFT as two stages of dense matmuls
 (Cooley-Tukey N = M1·M2 decomposition, the FlashFFTConv formulation —
-PAPERS.md), which is the idiomatic mapping onto the 128x128 systolic
-array: for N = 16384 both factor matrices are exactly 128x128.
-
-Complex values are carried as separate (re, im) float32 planes.
+PAPERS.md): for N = 16384 both factor matrices are 128x128.  Complex
+values are carried as separate (re, im) float32 planes, and every
+matmul runs at ``Precision.HIGHEST`` (a float32 product at the default
+precision may run in TF32 on the GPU and miss the -90 dB budget).
+Whether ``jnp.fft`` (cuFFT) should replace it is an open question.
 
 Bin layout.  With n = M2*n1 + n2 and k = k1 + M1*k2 the transform is
 

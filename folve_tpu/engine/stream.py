@@ -1,4 +1,4 @@
-"""Streaming partitioned convolution — the TPU device engine.
+"""Streaming partitioned convolution — the device engine.
 
 Semantics match the reference's uniform partitioned scheme (zita-convolver
 ``Convproc`` as configured by zita-fconfig.cc:78-94: quantum = minpart =
@@ -8,7 +8,7 @@ overlap-add, with the convolution tail past end-of-input dropped by the
 caller (the reference writes exactly as many frames as it reads,
 sound-processor.cc:86-96).
 
-TPU-first design notes:
+Design notes:
 
 * In a uniform frequency-delay-line (FDL) scheme the output block ``t``
   depends only on the *input* spectra of blocks ``t-P+1 .. t`` and on the
@@ -19,9 +19,12 @@ TPU-first design notes:
   blocks, streams, channels, and frequency bins.  Carried state is tiny:
   the last ``P-1`` input spectra and one ``fragm``-frame overlap tail.
 
-* The target TPU backend has no complex dtype, so all spectra are
-  (re, im) float32 planes in the permuted matmul-FFT bin layout of
-  :mod:`folve_tpu.engine.rfft`; the FFTs themselves are MXU matmuls.
+* All spectra are (re, im) float32 planes in the permuted matmul-DFT
+  bin layout of :mod:`folve_tpu.engine.rfft`; the transforms are dense
+  matmuls at ``Precision.HIGHEST`` (a float32 product left at the
+  default precision may run in TF32 on the GPU and miss the -90 dB
+  accuracy budget).  The whole step is plain ``jax.numpy``/``lax``
+  left to XLA.
 """
 
 from __future__ import annotations
@@ -34,34 +37,15 @@ import jax.numpy as jnp
 from jax import lax
 
 from folve_tpu.engine.filter_bank import FilterBank
-from folve_tpu.engine.kernels.fdl_mac import _UNROLL_LIMIT
 from folve_tpu.engine.rfft import (
     fft_real,
+    get_plan,
     half_bins,
     ifft_from_half,
     ifft_to_real,
 )
 
 _PRECISION = lax.Precision.HIGHEST
-
-# FDL MAC implementation selector: "auto" uses the Pallas kernel on TPU
-# backends and XLA elsewhere; "pallas_interpret" runs the kernel in
-# interpreter mode (CPU tests).
-_MAC_IMPL = "auto"
-
-
-def set_mac_impl(impl: str) -> None:
-    global _MAC_IMPL
-    assert impl in ("auto", "xla", "pallas", "pallas_interpret")
-    _MAC_IMPL = impl
-
-
-def _is_tpu_backend() -> bool:
-    try:
-        d = jax.devices()[0]
-        return "tpu" in (d.platform + " " + d.device_kind).lower()
-    except Exception:
-        return False
 
 
 @jax.tree_util.register_dataclass
@@ -97,37 +81,24 @@ def init_state(bank: FilterBank) -> StreamState:
 
 
 def _fdl_mac(
-    h_spec: jax.Array, xall_re: jax.Array, xall_im: jax.Array, t: int,
-    impl: str = "xla",
+    h_spec: jax.Array, xall_re: jax.Array, xall_im: jax.Array, t: int
 ) -> tuple[jax.Array, jax.Array]:
     """Frequency-delay-line MAC: Y[t] = sum_p H[p] * Xall[t + (P-1) - p].
 
     ``h_spec``: [P, Cin, Cout, 2, K]; ``xall_re``/``xall_im``:
-    [T+P-1, Cin, K].  Returns (Yr, Yi) each [T, Cout, K].  ``impl`` is
-    resolved by the caller (chunk_step routes small unrolled partition
-    counts to the concat-free split kernel before ever reaching here).
+    [T+P-1, Cin, K].  Returns (Yr, Yi) each [T, Cout, K].
     """
     p, cin, cout, _, k = h_spec.shape
 
-    # Pallas kernel (large P / fori-loop variant): the XLA formulations
-    # re-materialize the accumulators in HBM once per partition; the
-    # kernel streams each frequency tile exactly once.
-    if impl in ("pallas", "pallas_interpret") and cin * cout <= 16:
-        from folve_tpu.engine.kernels.fdl_mac import pallas_fdl_mac
-
-        return pallas_fdl_mac(
-            h_spec, xall_re, xall_im, t, interpret=(impl == "pallas_interpret")
-        )
-
     # P is static — unroll in Python with *static* slices of the
     # concatenated spectra.  For the small channel counts of real filter
-    # configs the contraction over Cin is pure elementwise VPU work with
+    # configs the contraction over Cin is pure elementwise work with
     # the filter row broadcast over blocks — spelling it out that way
-    # avoids XLA lowering a 2-wide contraction as degenerate MXU matmuls
-    # (measured ~20x slower on v5e).  Large channel counts fall back to
-    # an einsum.  Accumulators are seeded from the first term rather
-    # than zero constants: one add fewer, and under shard_map's
-    # varying-manual-axes checking the seed inherits the data's vma set.
+    # keeps XLA from lowering a 2-wide contraction as degenerate
+    # matmuls.  Large channel counts fall back to an einsum.
+    # Accumulators are seeded from the first term rather than zero
+    # constants: one add fewer, and under shard_map's varying-manual-axes
+    # checking the seed inherits the data's vma set.
     if cin * cout <= 16:
         acc_r = [None] * cout
         acc_i = [None] * cout
@@ -201,21 +172,13 @@ def chunk_step(
 
     # 1. Block spectra: DFT of each block zero-padded to 2*fragm.  The
     # bank's (global) bin count says whether it was compiled half- or
-    # full-layout.  The MAC/FFT implementation choice is made here once
-    # (chunk_step is the single source of truth for kernel routing).
-    impl = _MAC_IMPL
-    if impl == "auto":
-        impl = "pallas" if _is_tpu_backend() else "xla"
-    use_pallas = impl in ("pallas", "pallas_interpret")
-    interpret = impl == "pallas_interpret"
-
+    # full-layout.  Each stage runs under a named scope so a profiler
+    # trace attributes device time to it.
     k_global = k * freq_shards
     half = k_global == half_bins(2 * b) and k_global != 2 * b
     if freq_axis is None:
         k1_window = {}
     else:
-        from folve_tpu.engine.rfft import get_plan
-
         plan = get_plan(2 * b)
         if plan.m1 % freq_shards:
             raise ValueError(
@@ -228,118 +191,27 @@ def chunk_step(
                 f"local bins {k} != k1_n*cols = {k1_n}*{cols} (bad shard layout)"
             )
         k1_window = dict(k1_start=lax.axis_index(freq_axis) * k1_n, k1_n=k1_n)
-    if half and freq_axis is None and use_pallas:
-        # Fused two-stage forward (both matmul stages in VMEM; XLA
-        # spills the stage intermediates to HBM — DEVNOTES measurements).
-        from folve_tpu.engine.kernels.fft_half import pallas_fft_real_half
-
-        xr, xi = pallas_fft_real_half(
-            x.astype(jnp.float32), 2 * b, interpret=interpret
-        )
-    elif half and use_pallas:
-        # Freq-sharded fused forward: the shard's stage factors vary
-        # with axis_index, so they are sliced here and passed as inputs.
-        from folve_tpu.engine.kernels.fft_half import pallas_fft_real_half_rows
-        from folve_tpu.engine.rfft import _rows, get_plan as _gp
-
-        plan2 = _gp(2 * b)
-        rows = min(plan2.m1, -(-b // plan2.m2))
-        ks, kn = k1_window["k1_start"], k1_window["k1_n"]
-        xr, xi = pallas_fft_real_half_rows(
-            x.astype(jnp.float32),
-            2 * b,
-            _rows(plan2.f1_re[:, :rows], ks, kn),
-            _rows(plan2.f1_im[:, :rows], ks, kn),
-            _rows(plan2.tw_re, ks, kn),
-            _rows(plan2.tw_im, ks, kn),
-            interpret=interpret,
-        )
-    else:
+    with jax.named_scope("fwd_dft"):
         xr, xi = fft_real(x.astype(jnp.float32), 2 * b, half=half, **k1_window)
 
-    # 2. FDL MAC against all partitions, fully parallel across T.  On
-    # the Pallas path the kernel reads (history, new spectra) as two
-    # buffers — the concatenated [T+P-1] window (a full extra HBM write
-    # per step) is never materialized.  XLA/fallback paths concatenate.
-    # Split kernel: the unrolled boundary region is min(P, T) partitions
-    # (beyond T the kernel fori-loops), so any P works as long as the
-    # boundary stays within the unroll budget and a VMEM-fitting tile
-    # exists (freq-sharded bin counts can defeat lane-legal tiling).
-    from folve_tpu.engine.kernels.fdl_mac import pallas_mac_supported
-
-    mac_ok = pallas_mac_supported(p, cin, cout, t, k)
-    use_split = (
-        use_pallas and cin * cout <= 16 and p >= 2
-        and min(p, t) <= _UNROLL_LIMIT and mac_ok
-    )
-    if use_split:
-        from folve_tpu.engine.kernels.fdl_mac import pallas_fdl_mac_split
-
-        y_re, y_im = pallas_fdl_mac_split(
-            bank.h_spec, state.hist_re, state.hist_im, xr, xi,
-            interpret=interpret,
-        )
-        if t >= p - 1:
-            new_re, new_im = xr[t - (p - 1):], xi[t - (p - 1):]
-        else:
-            new_re = jnp.concatenate([state.hist_re[t:], xr], axis=0)
-            new_im = jnp.concatenate([state.hist_im[t:], xi], axis=0)
-    else:
+    # 2. FDL MAC against all partitions, fully parallel across T.
+    with jax.named_scope("fdl_mac"):
         xall_re = jnp.concatenate([state.hist_re, xr], axis=0)  # [T+P-1,...]
         xall_im = jnp.concatenate([state.hist_im, xi], axis=0)
-        y_re, y_im = _fdl_mac(
-            bank.h_spec, xall_re, xall_im, t,
-            impl=impl if mac_ok else "xla",
-        )
+        y_re, y_im = _fdl_mac(bank.h_spec, xall_re, xall_im, t)
         if p > 1:
             new_re, new_im = xall_re[t:], xall_im[t:]
         else:
             new_re, new_im = state.hist_re, state.hist_im
 
-    # 3. Inverse FFT + overlap-add between consecutive blocks.  Half
+    # 3. Inverse DFT + overlap-add between consecutive blocks.  Half
     # banks (the compiler default) invert straight from the stored
     # rectangle (conjugate multiplicity weights — no reconstruction
     # pass, 65/128 stage-1 work); full banks use the plain two-stage
-    # inverse.  On TPU the fused Pallas inverse keeps both Cooley-Tukey
-    # stages in VMEM — XLA spills the stage intermediates to HBM, which
-    # made the inverse over half the whole step (measured 3.9x faster
-    # fused; DEVNOTES.md).
+    # inverse.
     shard_kw = dict(axis_name=freq_axis, **k1_window) if freq_axis else {}
-    if half and freq_axis is None and use_pallas:
-        # Fused inverse + overlap-add: the length-2B intermediate is
-        # never materialized; the tail carries across blocks in VMEM.
-        from folve_tpu.engine.kernels.ifft_half import pallas_ifft_ola
-
-        y, new_tail = pallas_ifft_ola(
-            y_re, y_im, state.tail, 2 * b, interpret=interpret
-        )
-    else:
-        if half and use_pallas and freq_axis is not None:
-            # Freq-sharded fused inverse: each shard computes its
-            # partial stage-2 sum in VMEM; one psum completes the k1
-            # contraction (the same single collective as the XLA path).
-            from folve_tpu.engine.kernels.ifft_half import (
-                pallas_ifft_partial_rows,
-            )
-            from folve_tpu.engine.rfft import _half_weights, _rows
-            from folve_tpu.engine.rfft import get_plan as _gp
-
-            plan2 = _gp(2 * b)
-            ks, kn = k1_window["k1_start"], k1_window["k1_n"]
-            wn_full = (_half_weights(2 * b) / float(2 * b)).astype("float32")
-            partial = pallas_ifft_partial_rows(
-                y_re,
-                y_im,
-                2 * b,
-                _rows(wn_full, ks, kn),
-                _rows(plan2.f1_re, ks, kn, axis=1),
-                _rows(plan2.f1_im, ks, kn, axis=1),
-                _rows(plan2.tw_re, ks, kn),
-                _rows(plan2.tw_im, ks, kn),
-                interpret=interpret,
-            )
-            y2 = lax.psum(partial, freq_axis)
-        elif half:
+    with jax.named_scope("inv_dft_ola"):
+        if half:
             y2 = ifft_from_half(y_re, y_im, 2 * b, **shard_kw)  # [T, Cout, 2B]
         else:
             y2 = ifft_to_real(y_re, y_im, 2 * b, **shard_kw)
@@ -382,8 +254,8 @@ def reset_state(state: StreamState, reset_max: bool = True) -> StreamState:
     )
 
 
-# Batched serving: many streams, one fused device step (the TPU analog of
-# the reference's "multiple cores via parallel file accesses",
+# Batched serving: many streams, one device step (the analog of the
+# reference's "multiple cores via parallel file accesses",
 # README.md:362-364).  All streams in a batch share one FilterBank pytree
 # *structure* (same shapes); distinct filters are fine — vmap carries a
 # per-stream h_spec.
@@ -391,281 +263,3 @@ batched_chunk_step = jax.vmap(chunk_step, in_axes=(0, 0, 0, 0))
 
 # Same-filter variant: one FilterBank broadcast across the stream batch.
 shared_filter_chunk_step = jax.vmap(chunk_step, in_axes=(None, 0, 0, 0))
-
-# Cache of fused-kernel filter permutations: id(h_spec) -> (h_spec,
-# h_perm).  The permute is a real device transpose — do it once per
-# compiled filter, not per step.  Bounded like the scheduler's
-# placed-bank cache (the pool caps live configs anyway).
-_H_PERM_CACHE: dict = {}
-
-
-def _fused_h_perm(bank: FilterBank) -> jax.Array:
-    from folve_tpu.engine.kernels.conv_step import permute_h_for_fused
-
-    if isinstance(bank.h_spec, jax.core.Tracer):
-        # Under jit the permute cannot be hoisted across steps — it is
-        # traced inline (one device transpose of the spectra per
-        # executed step, ~4 MB at the headline bank).  Steady-state
-        # callers avoid this by passing a pre-permuted ``h_perm``
-        # (:func:`eager_h_perm`, computed OUTSIDE the jit) to the step
-        # functions.  Never cache tracers: id()-keyed entries would pin
-        # dead trace machinery and can never hit.
-        return permute_h_for_fused(bank.h_spec, 2 * bank.fragm)
-    key = id(bank.h_spec)
-    hit = _H_PERM_CACHE.get(key)
-    if hit is not None and hit[0] is bank.h_spec:
-        return hit[1]
-    hp = permute_h_for_fused(bank.h_spec, 2 * bank.fragm)
-    if len(_H_PERM_CACHE) > 16:
-        _H_PERM_CACHE.clear()
-    _H_PERM_CACHE[key] = (bank.h_spec, hp)
-    return hp
-
-
-def eager_h_perm(bank: FilterBank):
-    """Pre-permuted fused-kernel filter spectra for ``bank``, or None
-    when the bank cannot take the fused route.  Call OUTSIDE jit (eager
-    values only) and pass the result as the step functions' ``h_perm``
-    so the permute happens once per filter instead of once per step."""
-    if isinstance(bank.h_spec, jax.core.Tracer):  # pragma: no cover
-        raise TypeError("eager_h_perm must be called outside jit")
-    impl = _MAC_IMPL
-    if impl == "auto":
-        impl = "pallas" if _is_tpu_backend() else "xla"
-    if impl not in ("pallas", "pallas_interpret"):
-        return None  # fused route never taken on this backend
-    if not fused_serving_supported(bank, 1):
-        return None
-    return _fused_h_perm(bank)
-
-
-def fused_serving_supported(bank: FilterBank, t: int) -> bool:
-    """True when the batched serving step can run as ONE fused Pallas
-    kernel (fwd FFT -> FDL MAC -> iFFT/OLA without spilling block
-    spectra to HBM).  Requires a half-layout bank and a resident set
-    (filter spectra + FDL ring) that fits the VMEM budget."""
-    from folve_tpu.engine.kernels.conv_step import fused_supported
-
-    p, cin, cout, _, k = bank.h_spec.shape
-    n = 2 * bank.fragm
-    if k != half_bins(n) or k == n:
-        return False
-    return fused_supported(p, cin, cout, t, n)
-
-
-def serving_chunk_step(
-    bank: FilterBank,
-    states: StreamState,
-    x: jax.Array,
-    n_valid: jax.Array,
-    h_perm: "jax.Array | None" = None,
-) -> tuple[StreamState, jax.Array]:
-    """Batched shared-filter serving step (BASELINE config 5): ``states``
-    is a :class:`StreamState` with a leading stream axis, ``x`` is
-    ``[S, T, Cin, fragm]``, ``n_valid`` int32 ``[S]``.
-
-    Routes to the fully-fused single-kernel step when the shape
-    supports it (block spectra never round-trip HBM between the FFT /
-    MAC / inverse stages — VERDICT r4's top perf item); otherwise to
-    the vmapped three-kernel path.  Same semantics either way (carried
-    state, clipping monitor over valid frames; equality pinned by
-    tests/test_conv_step_fused.py)."""
-    impl = _MAC_IMPL
-    if impl == "auto":
-        impl = "pallas" if _is_tpu_backend() else "xla"
-    t = x.shape[1]
-    if impl in ("pallas", "pallas_interpret") and fused_serving_supported(
-        bank, t
-    ):
-        from folve_tpu.engine.kernels.conv_step import pallas_conv_step_fused
-
-        b = bank.fragm
-        blk = lax.iota(jnp.int32, t) * b
-        valid = jnp.clip(
-            jnp.asarray(n_valid, jnp.int32)[:, None] - blk[None, :], 0, b
-        )
-        y, hr, hi, tl, mx = pallas_conv_step_fused(
-            h_perm if h_perm is not None else _fused_h_perm(bank),
-            x, states.hist_re, states.hist_im,
-            states.tail, valid, 2 * b,
-            interpret=(impl == "pallas_interpret"),
-        )
-        new = StreamState(
-            hist_re=hr, hist_im=hi, tail=tl,
-            max_abs=jnp.maximum(states.max_abs, mx),
-        )
-        return new, y
-    return shared_filter_chunk_step(bank, states, x, n_valid)
-
-
-# ---------------------------------------------------------------------------
-# Pre-shaped steady-state serving (no per-step device retiles).
-#
-# On TPU the (8,128) memory tile spans the last TWO dims, so the 4-D<->5-D
-# reshapes at the fused kernel's boundary are physical HBM copies
-# (measured 3.1 ms of the 23.8 ms headline step).  Steady-state serving
-# loops therefore carry the state in the kernel's native 5-D layouts and
-# stage the input host-side (a numpy reshape is free); only entering /
-# leaving the fused loop converts layouts.
-
-import typing as _typing
-
-
-class FusedServingCarry(_typing.NamedTuple):
-    """Batched serving state in the fused kernel's pre-shaped layouts.
-
-    ``hist_re``/``hist_im``: [S, P-1, Cin, cols, m1] — the kernel's
-    TRANSPOSED tile layout, so the steady-state loop pays ZERO in-kernel
-    hist transposes (2*(P-1)*Cin*2 per stream per step otherwise);
-    ``tail``: [S, Cout, rows, m2]; ``max_abs``: [S].  Convert with
-    :func:`carry_from_states` / :func:`states_from_carry` (one device
-    transpose each way, on entry/exit only).
-    """
-
-    hist_re: jax.Array
-    hist_im: jax.Array
-    tail: jax.Array
-    max_abs: jax.Array
-
-
-def _fused_dims(bank: FilterBank):
-    from folve_tpu.engine.kernels.conv_step import fused_preshape
-
-    return fused_preshape(2 * bank.fragm)
-
-
-def fused_carry_init(bank: FilterBank, s: int) -> FusedServingCarry:
-    p, cin, cout, _, k = bank.h_spec.shape
-    rows, m2, m1, cols = _fused_dims(bank)
-    z = lambda shape: jnp.zeros(shape, jnp.float32)
-    return FusedServingCarry(
-        hist_re=z((s, p - 1, cin, cols, m1)),
-        hist_im=z((s, p - 1, cin, cols, m1)),
-        tail=z((s, cout, rows, m2)),
-        max_abs=z((s,)),
-    )
-
-
-def carry_from_states(bank: FilterBank, states: StreamState) -> FusedServingCarry:
-    """Batched StreamState (leading S axis, canonical flat bins) ->
-    pre-shaped carry.  One-time physical retile + transpose on device."""
-    p, cin, cout, _, k = bank.h_spec.shape
-    rows, m2, m1, cols = _fused_dims(bank)
-    s = states.hist_re.shape[0]
-    tr = lambda h: jnp.swapaxes(
-        h.reshape(s, p - 1, cin, m1, cols), -1, -2)
-    return FusedServingCarry(
-        hist_re=tr(states.hist_re),
-        hist_im=tr(states.hist_im),
-        tail=states.tail.reshape(s, cout, rows, m2),
-        max_abs=states.max_abs,
-    )
-
-
-def states_from_carry(bank: FilterBank, carry: FusedServingCarry) -> StreamState:
-    """Inverse of :func:`carry_from_states` (streams leaving the loop)."""
-    p, cin, cout, _, k = bank.h_spec.shape
-    s = carry.hist_re.shape[0]
-    untr = lambda h: jnp.swapaxes(h, -1, -2).reshape(s, p - 1, cin, k)
-    return StreamState(
-        hist_re=untr(carry.hist_re),
-        hist_im=untr(carry.hist_im),
-        tail=carry.tail.reshape(s, cout, bank.fragm),
-        max_abs=carry.max_abs,
-    )
-
-
-def stage_x_for_fused(bank: FilterBank, x) -> "jax.Array | None":
-    """Host-side: [S, T, Cin, fragm] numpy audio -> the kernel's
-    [S, T, Cin, rows, m2] layout (a free host reshape; device_put of the
-    result lands already-tiled, skipping the on-device retile)."""
-    rows, m2, m1, cols = _fused_dims(bank)
-    s, t, cin, b = x.shape
-    return x.reshape(s, t, cin, rows, m2)
-
-
-def fused_serving_step_pre(
-    bank: FilterBank,
-    carry: FusedServingCarry,
-    x5: jax.Array,
-    n_valid: jax.Array,
-    interpret: bool = False,
-    h_perm: "jax.Array | None" = None,
-) -> tuple[FusedServingCarry, jax.Array]:
-    """Steady-state fused serving step on pre-shaped arrays.
-
-    ``x5``: [S, T, Cin, rows, m2] (see :func:`stage_x_for_fused`);
-    returns ``(carry', y5)`` with ``y5`` [S, T, Cout, rows, m2] — flat
-    audio is ``y5.reshape(S, T, Cout, fragm)`` HOST-side after fetch.
-    Same semantics as :func:`serving_chunk_step` (equality pinned by
-    tests/test_conv_step_fused.py).  Jit with donated carry:
-    ``jax.jit(fused_serving_step_pre, static_argnames='interpret',
-    donate_argnums=1)``.
-    """
-    from folve_tpu.engine.kernels.conv_step import pallas_conv_step_fused_pre
-
-    b = bank.fragm
-    t = x5.shape[1]
-    blk = lax.iota(jnp.int32, t) * b
-    valid = jnp.clip(
-        jnp.asarray(n_valid, jnp.int32)[:, None] - blk[None, :], 0, b
-    )
-    y5, hr, hi, tl, mx = pallas_conv_step_fused_pre(
-        h_perm if h_perm is not None else _fused_h_perm(bank),
-        x5, carry.hist_re, carry.hist_im,
-        carry.tail, valid, 2 * b, interpret=interpret, hist_t=True,
-    )
-    new = FusedServingCarry(
-        hist_re=hr, hist_im=hi, tail=tl,
-        max_abs=jnp.maximum(carry.max_abs, mx),
-    )
-    return new, y5
-
-
-def single_chunk_step(
-    bank: FilterBank,
-    state: StreamState,
-    x: jax.Array,
-    n_valid=None,
-    h_perm: "jax.Array | None" = None,
-) -> tuple[StreamState, jax.Array]:
-    """:func:`chunk_step` for ONE stream, routed through the fused
-    single-kernel step when the shape supports it (the lone-stream
-    runtime pump: processor._jitted_chunk, the scheduler's lone path).
-
-    Never vmap this — it adds its own unit batch axis; use
-    :func:`chunk_step` inside vmaps.  Semantics identical to
-    chunk_step (tests/test_conv_step_fused.py pins the fused kernel
-    against it)."""
-    t = x.shape[0]
-    if n_valid is None:
-        n_valid = t * bank.fragm
-    impl = _MAC_IMPL
-    if impl == "auto":
-        impl = "pallas" if _is_tpu_backend() else "xla"
-    if impl in ("pallas", "pallas_interpret") and fused_serving_supported(
-        bank, t
-    ):
-        from folve_tpu.engine.kernels.conv_step import pallas_conv_step_fused
-
-        b = bank.fragm
-        blk = lax.iota(jnp.int32, t) * b
-        valid = jnp.clip(
-            (jnp.asarray(n_valid, jnp.int32) - blk)[None, :], 0, b
-        )
-        y, hr, hi, tl, mx = pallas_conv_step_fused(
-            h_perm if h_perm is not None else _fused_h_perm(bank),
-            x[None],
-            state.hist_re[None],
-            state.hist_im[None],
-            state.tail[None],
-            valid,
-            2 * b,
-            interpret=(impl == "pallas_interpret"),
-        )
-        new = StreamState(
-            hist_re=hr[0], hist_im=hi[0], tail=tl[0],
-            max_abs=jnp.maximum(state.max_abs, mx[0]),
-        )
-        return new, y[0]
-    return chunk_step(bank, state, x, n_valid)

@@ -1,23 +1,23 @@
-"""Multi-host serving tier — DCN-scale data parallelism over hosts.
+"""Multi-host serving tier — data parallelism over hosts.
 
 The reference scales to "multiple cores via parallel file accesses" on
 ONE machine (reference README.md:362-364); its only network socket is
 the localhost status server (status-server.cc:190).  This tier is the
-TPU-native extension SURVEY §2 calls for: many hosts, each mounting its
+scale-out extension SURVEY §2 calls for: many hosts, each mounting its
 own filesystem and feeding its own streams, sharing one global device
 mesh.
 
 Design — a 3-axis mesh ``("host", "stream", "freq")``:
 
 * ``host`` — pure data parallelism over hosts.  NO collectives ever run
-  on this axis, so the only cross-host (DCN) traffic is XLA's program
+  on this axis, so the only cross-host traffic is XLA's program
   launch coordination; audio, state, filters and the one serving psum
   all stay host-local.
 * ``stream`` — data parallelism over each host's local streams (as in
   :mod:`folve_tpu.parallel.serving`).
 * ``freq`` — tensor parallelism over frequency bins; its single psum
-  (inverse-FFT contraction) runs between devices of ONE host, i.e. over
-  ICI, never DCN.  :func:`make_multihost_serving_mesh` guarantees this
+  (inverse-FFT contraction) runs between devices of ONE host, never
+  across the host network.  :func:`make_multihost_serving_mesh` guarantees this
   by construction: each host's devices form complete (stream × freq)
   subgrids.
 
@@ -31,15 +31,15 @@ convolution state through UNCHANGED, so a stalled reader resumes
 bit-exactly), and all hosts tick together.  State lives on device
 between ticks; only audio crosses the host boundary, per host.
 
-On real multi-host TPU pods each process calls
+In a real multi-host deployment each process calls
 ``jax.distributed.initialize`` and feeds its process-local rows only:
 SlotServer then builds every global array with
 ``jax.make_array_from_process_local_data`` and reads back only its own
 addressable shards.  Single-process (tests: an 8-device virtual mesh
 split into simulated hosts) drives all hosts from one instance with
 plain ``device_put``.  The multi-process branches follow the standard
-jax multi-controller recipe but no multi-host pod exists in this
-environment — they are code-reviewed, not hardware-tested.
+jax multi-controller recipe but no multi-host cluster exists in this
+repository's tests — they are code-reviewed, not hardware-tested.
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def make_multihost_serving_mesh(
 
     In a real multi-process run, devices group by ``process_index`` —
     each mesh "host" row is exactly one process's local devices, which
-    is what keeps the freq psum on ICI.  Single-process (tests), pass
+    is what keeps the freq psum inside one host.  Single-process (tests), pass
     ``n_hosts`` to split the device list into simulated hosts.
     """
     devs = list(devices) if devices is not None else list(jax.devices())
@@ -112,8 +112,7 @@ def make_multihost_serving_mesh(
 
 
 def make_multihost_serving_step(mesh: Mesh, fragm: int, *,
-                                shared_bank: bool = False,
-                                check_vma: bool = True):
+                                shared_bank: bool = False):
     """Jitted global serving step over the (host, stream, freq) mesh.
 
     Same contract as serving.make_sharded_serving_step plus a trailing
@@ -161,7 +160,6 @@ def make_multihost_serving_step(mesh: Mesh, fragm: int, *,
         in_specs=(spec_h, SPEC_HIST, SPEC_HIST, SPEC_TAIL, SPEC_SCALAR,
                   SPEC_X, SPEC_SCALAR, SPEC_SCALAR),
         out_specs=(SPEC_HIST, SPEC_HIST, SPEC_TAIL, SPEC_SCALAR, SPEC_X),
-        check_vma=check_vma,
     )
     return jax.jit(step)
 
@@ -192,7 +190,7 @@ class SlotServer:
         self.cin, self.cout = cin, cout
         self._step = make_multihost_serving_step(mesh, bank.fragm,
                                                  shared_bank=True)
-        # Real pods run one process per host: every global array is
+        # Real deployments run one process per host: every global array is
         # built from process-local data (device_put onto a sharding that
         # spans non-addressable devices is not legal there).  The
         # single-process virtual mesh (tests) owns everything.

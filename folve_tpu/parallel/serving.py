@@ -1,7 +1,7 @@
 """Multi-chip sharded serving — mesh, shardings, collectives.
 
 The reference's only scale-out is "multiple cores via parallel file
-accesses" (README.md:362-364).  The TPU-native equivalent is a 2D device
+accesses" (README.md:362-364).  The device equivalent is a 2D device
 mesh:
 
 * ``stream`` axis — data parallelism over the batch of open streams.
@@ -83,8 +83,7 @@ SPEC_X = P("stream", None, None, None)
 
 
 def make_sharded_serving_step(
-    mesh: Mesh, fragm: int, *, shared_bank: bool = False, gather: bool = False,
-    check_vma: bool = True,
+    mesh: Mesh, fragm: int, *, shared_bank: bool = False, gather: bool = False
 ):
     """Build the jitted multi-chip serving step for one block length.
 
@@ -130,17 +129,12 @@ def make_sharded_serving_step(
             h_spec, hist_re, hist_im, tail, max_abs, x, n_valid
         )
 
-    # check_vma stays ON for production; ``check_vma=False`` exists only
-    # for interpret-mode Pallas tests on the virtual CPU mesh, where the
-    # interpreter's block extraction (dynamic_slice with unvarying grid
-    # indices) trips JAX's varying-manual-axes rule.
     step = _shard_map(
         local,
         mesh=mesh,
         in_specs=(spec_h, SPEC_HIST, SPEC_HIST, SPEC_TAIL, SPEC_SCALAR,
                   SPEC_X, SPEC_SCALAR),
         out_specs=(SPEC_HIST, SPEC_HIST, SPEC_TAIL, SPEC_SCALAR, SPEC_X),
-        check_vma=check_vma,
     )
     if not gather:
         return jax.jit(step)

@@ -711,12 +711,11 @@ class ConvolveFileHandler(FileHandler):
 
     # ------------------------------------------------------------- the pump
 
-    # Blocks per fused device call on the bulk path (away from stream
+    # Blocks per bulk device dispatch on the bulk path (away from stream
     # edges); one block per call near EOF keeps gapless semantics exact.
-    # Blocks per bulk device dispatch.  Measured on v5e (131k-tap bank,
-    # single stream): T=4 -> 1361x, T=8 -> 2061x realtime — per-dispatch
-    # overhead dominates below T=8; beyond that, latency per blocking
-    # read grows faster than throughput.
+    # Fewer blocks per dispatch pay the per-dispatch overhead more often;
+    # more blocks make each blocking read wait longer.  Not measured on
+    # the GPU yet.
     CHUNK_BLOCKS = 8
 
     def add_more_sound_data(self) -> bool:

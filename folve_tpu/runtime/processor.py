@@ -1,4 +1,4 @@
-"""SoundProcessor — the host-side block pump around the TPU engine.
+"""SoundProcessor — the host-side block pump around the device engine.
 
 Behavioral twin of sound-processor.{h,cc}: owns one compiled filter and
 one stream's convolution state, fills a ``fragm``-frame input block from
@@ -22,14 +22,12 @@ from typing import Optional
 import jax
 import numpy as np
 
-from folve_tpu.engine.stream import chunk_step, init_state, single_chunk_step
+from folve_tpu.engine.stream import chunk_step, init_state
 from folve_tpu.filters.compiler import CompiledFilter, compile_config_file
 from folve_tpu.utils.profiling import LatencyStats
 
-# Lone-stream pump step: routes through the fused single-kernel conv
-# step on TPU when the shape supports it (single_chunk_step), else the
-# three-kernel chunk_step — same semantics either way.
-_jitted_chunk = jax.jit(single_chunk_step)
+# Lone-stream pump step.
+_jitted_chunk = jax.jit(chunk_step)
 
 
 def _quantize(y, bits: int):
@@ -106,13 +104,6 @@ class SoundProcessor:
         # Per-stream device-step latency (SURVEY §5 tracing: "per-stream
         # block latency counters surfaced on the status page").
         self.latency = LatencyStats()
-        # Pre-permuted fused-kernel filter spectra (None when the bank
-        # can't take the fused route).  Computed HERE, outside jit, so
-        # the permute — a real device transpose of the whole spectra —
-        # happens once per processor instead of once per pump step.
-        from folve_tpu.engine.stream import eager_h_perm
-
-        self._h_perm = eager_h_perm(self.bank)
         self._state = init_state(self.bank)
         b = self.bank.fragm
         self._in_buf = np.zeros((b, self.bank.ninp), dtype=np.float32)
@@ -279,8 +270,7 @@ class SoundProcessor:
                 self._state, y = fut.result()
             else:
                 self._state, y = _jitted_chunk(
-                    self.bank, self._state, x, np.int32(self._input_pos),
-                    h_perm=self._h_perm,
+                    self.bank, self._state, x, np.int32(self._input_pos)
                 )
             if quantize_bits is not None and not _is_quantized(y):
                 y = _jitted_quantize(y, quantize_bits)
@@ -293,7 +283,7 @@ class SoundProcessor:
     def pump_chunk(self, source, sink, max_blocks: int,
                    quantize_bits: Optional[int] = None) -> int:
         """Fast path: read, convolve and write up to ``max_blocks`` full
-        blocks in ONE device step (the TPU-native replacement for the
+        blocks in ONE device step (the replacement for the
         reference's one-block pump; used away from stream edges where
         the gapless partial-block semantics cannot trigger).
 
@@ -346,8 +336,7 @@ class SoundProcessor:
                 self._inflight = _Inflight(fut, None, r, quantize_bits, sink)
             else:
                 state, y = _jitted_chunk(
-                    self.bank, self._state, x, np.int32(r),
-                    h_perm=self._h_perm)
+                    self.bank, self._state, x, np.int32(r))
                 self._state = state  # async: chunk N queues on device
                 if quantize_bits is not None:
                     y = _jitted_quantize(y, quantize_bits)

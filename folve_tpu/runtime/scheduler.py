@@ -1,7 +1,7 @@
 """DeviceScheduler — fuse many streams' block work into one device step.
 
 The reference's multi-stream story is "one FUSE thread per open file,
-each running its own Convproc" (README.md:362-364).  The TPU-native
+each running its own Convproc" (README.md:362-364).  The device
 equivalent is a single device stepper that coalesces the block jobs of
 all concurrently-pumping streams (FUSE reader threads, the prefetch
 thread) into one batched ``vmap``-ed convolution step — BASELINE
@@ -28,33 +28,26 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import functools
-
 from folve_tpu.engine.filter_bank import FilterBank
 from folve_tpu.engine.stream import (
-    FusedServingCarry,
     StreamState,
-    carry_from_states,
+    batched_chunk_step,
     chunk_step,
-    serving_chunk_step,
+    shared_filter_chunk_step,
 )
+from folve_tpu.runtime.processor import _quantize
 
-_batched_step = jax.jit(jax.vmap(chunk_step, in_axes=(0, 0, 0, 0)))
+_batched_step = jax.jit(batched_chunk_step)
 # Shared-filter fast path: one FilterBank broadcast across the batch —
 # avoids stacking S copies of the spectra when all jobs use one filter.
-# Routes to the fully-fused single-Pallas-kernel step on TPU when the
-# shape supports it (engine.stream.serving_chunk_step).
-_shared_step = jax.jit(serving_chunk_step)
+_shared_step = jax.jit(shared_filter_chunk_step)
 
 # Lone-stream fast path (no batch dim, no stack/unstack host work).
 from folve_tpu.runtime.processor import _jitted_chunk as _single_step
 
 
-def _single_step_quantized(bank, state, x, n_valid, bits, h_perm=None):
-    from folve_tpu.engine.stream import single_chunk_step
-    from folve_tpu.runtime.processor import _quantize
-
-    state, y = single_chunk_step(bank, state, x, n_valid, h_perm=h_perm)
+def _single_step_quantized(bank, state, x, n_valid, bits):
+    state, y = chunk_step(bank, state, x, n_valid)
     return state, _quantize(y, bits)
 
 
@@ -135,94 +128,6 @@ class ShardedStateRef:
         return self.parent.max_abs[self.idx]
 
 
-class _FusedSlots:
-    """One fused pre-shaped step's output carry (single-chip analog of
-    :class:`_SlotStates`): a batched :class:`FusedServingCarry` kept
-    device-resident in the kernel's native 5-D layouts so steady-state
-    serving never pays the per-step canonical<->tiled retile
-    (a PHYSICAL HBM copy on TPU — DEVNOTES r5)."""
-
-    __slots__ = ("carry", "__weakref__")
-
-    def __init__(self, carry: FusedServingCarry):
-        self.carry = carry
-
-
-class FusedStateRef:
-    """Duck-typed :class:`StreamState` view into a :class:`_FusedSlots`
-    batch.  Field access lazily materializes the canonical flat-bin
-    layout (only fallback paths — reset, path switches — ever do)."""
-
-    __slots__ = ("parent", "idx")
-
-    def __init__(self, parent: _FusedSlots, idx: int):
-        self.parent = parent
-        self.idx = idx
-
-    @property
-    def hist_re(self):
-        # Carry rows are in the kernel's transposed tile layout
-        # [P-1, Cin, cols, m1]; canonical flat bins = transpose + flatten
-        # (a device transpose — fallback paths only).
-        h = self.parent.carry.hist_re[self.idx]
-        return jnp.swapaxes(h, -1, -2).reshape(h.shape[0], h.shape[1], -1)
-
-    @property
-    def hist_im(self):
-        h = self.parent.carry.hist_im[self.idx]
-        return jnp.swapaxes(h, -1, -2).reshape(h.shape[0], h.shape[1], -1)
-
-    @property
-    def tail(self):
-        t = self.parent.carry.tail[self.idx]  # [Cout, rows, m2]
-        return t.reshape(t.shape[0], -1)
-
-    @property
-    def max_abs(self):
-        return self.parent.carry.max_abs[self.idx]
-
-
-def _as_plain_state(state):
-    """Materialize a FusedStateRef to a canonical StreamState (device
-    arrays); pass anything else through."""
-    if isinstance(state, FusedStateRef):
-        return StreamState(
-            hist_re=state.hist_re,
-            hist_im=state.hist_im,
-            tail=state.tail,
-            max_abs=state.max_abs,
-        )
-    return state
-
-
-@functools.partial(jax.jit, static_argnames=("n", "interpret"))
-def _fused_gather_step(h_perm, carry, idx, x5, n_valid, n, interpret=False):
-    """Gather the batch's rows from a device-resident carry and run the
-    fused pre-shaped step; returns (new_carry, y) with y flattened back
-    to [S, T, Cout, fragm] (one in-jit retile instead of per-field
-    boundary retiles)."""
-    from jax import lax
-
-    from folve_tpu.engine.kernels.conv_step import pallas_conv_step_fused_pre
-
-    g = FusedServingCarry(
-        *(jnp.take(a, idx, axis=0) for a in carry)
-    )
-    b = n // 2
-    t = x5.shape[1]
-    blk = lax.iota(jnp.int32, t) * b
-    valid = jnp.clip(
-        jnp.asarray(n_valid, jnp.int32)[:, None] - blk[None, :], 0, b
-    )
-    y5, hr, hi, tl, mx = pallas_conv_step_fused_pre(
-        h_perm, x5, g.hist_re, g.hist_im, g.tail, valid, n,
-        interpret=interpret, hist_t=True,
-    )
-    new = FusedServingCarry(hr, hi, tl, jnp.maximum(g.max_abs, mx))
-    s, t2, cout = y5.shape[:3]
-    return new, y5.reshape(s, t2, cout, b)
-
-
 _live_schedulers: "weakref.WeakSet[DeviceScheduler]" = weakref.WeakSet()
 
 
@@ -257,7 +162,6 @@ class DeviceScheduler:
         # by _mutex — submit() reads it on caller threads while
         # _execute_sharded() replaces entries on the scheduler thread.
         self._parents: Dict[Tuple, list] = {}  # sig -> [weakref(_SlotStates)]
-        self._fused_parents: Dict[Tuple, list] = {}  # sig -> [weakref(_FusedSlots)]
         # Stream tokens recently seen by submit(); used to skip the
         # coalescing window when provably only one stream is pumping.
         self._stream_seen: Dict[object, float] = {}
@@ -269,14 +173,12 @@ class DeviceScheduler:
         self._stop = False
         # Observability (status page / tests) — the reference's analog is
         # its CPU% prose and the status page's render timer; ours counts
-        # fused device steps and their latency (SURVEY.md §5 tracing).
+        # batched device steps and their latency (SURVEY.md §5 tracing).
         self.steps = 0
         self.jobs = 0
         self.batched_jobs = 0
         self.sharded_steps = 0
         self.sharded_fast_steps = 0  # device-resident-state steps
-        self.fused_steps = 0  # single-chip fused pre-shaped steps
-        self.fused_fast_steps = 0  # ... with device-resident carry gather
         self.materialized = 0  # sharded states forced back to host
         self.coalesce_waits = 0  # times the window was actually paid
         self.total_step_s = 0.0
@@ -330,15 +232,6 @@ class DeviceScheduler:
         (the SoundProcessor passes ``id(self)``).  Lets the scheduler
         skip the coalescing window when only one stream is pumping —
         the window is pure added latency on a lone blocking read."""
-        if isinstance(state, FusedStateRef):
-            with self._mutex:
-                refs = self._fused_parents.get(_signature(bank), ())
-                live = any(r() is state.parent for r in refs)
-            if not live:
-                # Superseded carry batch: materialize this row (device
-                # slices) so the old batch's HBM is released.
-                self.materialized += 1
-                state = _as_plain_state(state)
         if isinstance(state, ShardedStateRef):
             with self._mutex:
                 refs = self._parents.get(_signature(bank), ())
@@ -464,51 +357,21 @@ class DeviceScheduler:
         if mesh is not None:
             self._execute_sharded(mesh, jobs, all_jobs)
             return
-        shared0 = all(j.bank.h_spec is bank0.h_spec for j in all_jobs)
-        if shared0 and padded >= 2:
-            from folve_tpu.engine import stream as _stream
-
-            impl = _stream._MAC_IMPL
-            if impl == "auto":
-                impl = "pallas" if _stream._is_tpu_backend() else "xla"
-            t_blocks = np.asarray(jobs[0].x).shape[0]
-            if impl in (
-                "pallas", "pallas_interpret"
-            ) and _stream.fused_serving_supported(bank0, t_blocks):
-                self._execute_fused(
-                    jobs, all_jobs,
-                    interpret=(impl == "pallas_interpret"),
-                )
-                return
-        # Paths below treat states as StreamState pytrees: materialize
-        # any fused device-resident refs (path switch, rare).
-        for job in jobs:
-            job.state = _as_plain_state(job.state)
         if n == 1 and padded == 1:
             # Lone stream: run the plain engine step — no stack/unstack
             # host work, no batch dim (same math as the vmapped path,
             # bit-identity covered by test_scheduler).
             job = jobs[0]
-            from folve_tpu.engine import stream as _stream
-
-            # Hoist the fused-kernel filter permute out of the jitted
-            # step (once per filter via the placed cache, not per step).
-            hp = None
-            if _stream.fused_serving_supported(
-                job.bank, np.asarray(job.x).shape[0]
-            ):
-                hp = self._fused_placed(job.bank)
             t0 = time.perf_counter()
             if job.quantize_bits is not None:
                 state, y = _single_step_q(
                     job.bank, job.state, jnp.asarray(job.x),
                     jnp.int32(int(job.n_valid)), bits=job.quantize_bits,
-                    h_perm=hp,
                 )
             else:
                 state, y = _single_step(
                     job.bank, job.state, jnp.asarray(job.x),
-                    jnp.int32(int(job.n_valid)), h_perm=hp,
+                    jnp.int32(int(job.n_valid)),
                 )
             jax.block_until_ready(y)
             dt = time.perf_counter() - t0
@@ -546,93 +409,6 @@ class DeviceScheduler:
         for idx, job in enumerate(jobs):
             state_i = jax.tree_util.tree_map(lambda a: a[idx], new_states)
             job.future.set_result((state_i, y[idx]))
-
-    def _fused_placed(self, bank: FilterBank):
-        """Device-placed pre-permuted filter spectra for the fused
-        kernel, cached by h_spec identity (the permute is a real device
-        transpose — once per filter, not per step)."""
-        from folve_tpu.engine.kernels.conv_step import permute_h_for_fused
-
-        key = ("fusedperm", id(bank.h_spec))
-        hit = self._placed_banks.get(key)
-        if hit is not None and hit[0] is bank.h_spec:
-            self._placed_banks.move_to_end(key)
-            return hit[1]
-        placed = jax.device_put(
-            permute_h_for_fused(bank.h_spec, 2 * bank.fragm)
-        )
-        self._placed_banks[key] = (bank.h_spec, placed)
-        while len(self._placed_banks) > 16:
-            self._placed_banks.popitem(last=False)
-        return placed
-
-    def _execute_fused(
-        self, jobs: List[_Job], all_jobs: List[_Job], interpret: bool
-    ) -> None:
-        """Single-chip shared-filter batch through the fused pre-shaped
-        kernel with a device-resident state carry.
-
-        Steady state (all jobs' states are rows of one live carry
-        batch): the jitted step gathers the rows on device, runs the
-        single fused Pallas kernel, and the new carry stays in the
-        kernel's native layouts — no canonical<->tiled retiles, no
-        per-stream state stacking.  Entry (fresh streams / mixed
-        parents): one canonical stack + retile establishes the carry.
-        """
-        from folve_tpu.engine import stream as _stream
-
-        bank0 = all_jobs[0].bank
-        b = bank0.fragm
-        states = [j.state for j in all_jobs]
-        parent = (
-            states[0].parent if isinstance(states[0], FusedStateRef) else None
-        )
-        fast = parent is not None and all(
-            isinstance(s, FusedStateRef) and s.parent is parent
-            for s in states
-        )
-        x_h = np.stack(
-            [np.asarray(j.x, dtype=np.float32) for j in all_jobs]
-        )
-        x5 = jnp.asarray(_stream.stage_x_for_fused(bank0, x_h))
-        nv = np.asarray([int(j.n_valid) for j in all_jobs], dtype=np.int32)
-        t0 = time.perf_counter()
-        if fast:
-            carry = parent.carry
-            idx = np.asarray([s.idx for s in states], dtype=np.int32)
-            self.fused_fast_steps += 1
-        else:
-            plain = [_as_plain_state(s) for s in states]
-            stacked = StreamState(
-                hist_re=jnp.stack([s.hist_re for s in plain]),
-                hist_im=jnp.stack([s.hist_im for s in plain]),
-                tail=jnp.stack([s.tail for s in plain]),
-                max_abs=jnp.stack([s.max_abs for s in plain]),
-            )
-            carry = carry_from_states(bank0, stacked)
-            idx = np.arange(len(all_jobs), dtype=np.int32)
-        new_carry, y = _fused_gather_step(
-            self._fused_placed(bank0), carry, idx, x5, nv, 2 * b,
-            interpret=interpret,
-        )
-        jax.block_until_ready(y)
-        dt = time.perf_counter() - t0
-        n = len(jobs)
-        self.steps += 1
-        self.fused_steps += 1
-        self.total_step_s += dt
-        self.last_step_s = dt
-        self.last_batch = n
-        self.latency.record(dt)
-        if n > 1:
-            self.batched_jobs += n
-        new_parent = _FusedSlots(new_carry)
-        with self._mutex:
-            refs = self._fused_parents.setdefault(_signature(bank0), [])
-            refs[:] = [r for r in refs if r() is not None][-7:]
-            refs.append(weakref.ref(new_parent))
-        for i, job in enumerate(jobs):
-            job.future.set_result((FusedStateRef(new_parent, i), y[i]))
 
     def _placed_bank(self, mesh, h_spec):
         """Shared-bank spectra placed with the serving sharding, cached

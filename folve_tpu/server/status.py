@@ -160,7 +160,7 @@ class StatusServer:
     def _handle_profile(self, query: str) -> tuple[int, dict, bytes]:
         """``/profile?secs=N``: capture a JAX device trace of the next N
         seconds of serving (xplane/perfetto, viewable in xprof /
-        TensorBoard) — the TPU-native analog of the reference's ``-d``
+        TensorBoard) — the device-side analog of the reference's ``-d``
         raw request tracing (SURVEY §5)."""
         if not self.expensive_details:
             # Tracing costs device time and disk; gate it behind -D like

@@ -1,7 +1,8 @@
-"""Profiling hooks — the TPU equivalent of the reference's tracing aids.
+"""Profiling hooks — the device-side counterpart of the reference's
+tracing aids.
 
 The reference offers ``-R`` readdir/stat dumps, ``-d`` raw FUSE traces,
-and status-page render timing (SURVEY.md §5).  On TPU the interesting
+and status-page render timing (SURVEY.md §5).  Here the interesting
 trace is the device timeline: :func:`device_trace` wraps a scope in a
 JAX profiler capture (xplane/perfetto, viewable in TensorBoard or
 xprof), and :class:`LatencyStats` is a tiny lock-free-ish histogram for
@@ -25,55 +26,6 @@ def device_trace(log_dir: str) -> Iterator[None]:
         yield
     finally:
         jax.profiler.stop_trace()
-
-
-def analyze_device_trace(log_dir: str) -> dict:
-    """Parse the newest xplane capture under ``log_dir`` into measured
-    per-op device time and memory-bandwidth utilization.
-
-    Returns ``{}`` when no converter/trace is available (the bench
-    degrades to its analytic model).  Uses xprof's converter — note the
-    path must be passed as ``str``; ``bytes`` silently yields an error
-    blob (observed, DEVNOTES r5).
-    """
-    import glob
-    import json
-    import os
-
-    paths = sorted(
-        glob.glob(os.path.join(log_dir, "**", "*.xplane.pb"), recursive=True),
-        key=os.path.getmtime,
-    )
-    if not paths:
-        return {}
-    try:
-        from xprof.convert import _pywrap_profiler_plugin as pw
-
-        data = pw.xspace_to_tools_data([paths[-1]], "op_profile", {})
-        blob = data[0] if isinstance(data, tuple) else data
-        j = json.loads(blob)
-    except Exception:
-        return {}
-    out: dict = {"ops": []}
-    prog = j.get("byProgram") or {}
-    m = prog.get("metrics") or {}
-    # bandwidthUtils[0] = fraction of peak HBM bandwidth, averaged over
-    # device-busy time (xprof's own accounting).
-    bw = (m.get("bandwidthUtils") or [0])[0]
-    out["mem_bw_frac"] = float(bw)
-    total_ps = float(m.get("rawTime") or 0.0)
-    out["device_time_ms"] = total_ps / 1e9
-    def walk(node, depth):
-        for c in node.get("children", []):
-            cm = c.get("metrics") or {}
-            t = float(cm.get("rawTime") or 0.0)
-            if depth >= 1 and t > 0:
-                out["ops"].append((c.get("name", "?"), t / 1e9))
-            if depth < 2:
-                walk(c, depth + 1)
-    walk(prog, 0)
-    out["ops"].sort(key=lambda kv: -kv[1])
-    return out
 
 
 class LatencyStats:

@@ -3,7 +3,7 @@
 Run as:  python tests/_slotserver_worker.py <pid> <nprocs> <coord> <out.npz>
 
 Each process owns 2 local CPU devices (stream=1 x freq=2: the freq
-psum runs between this process's own devices, like ICI on a pod) and
+psum runs between this process's own devices, as within one host) and
 feeds only its own slot rows — exercising exactly the
 make_array_from_process_local_data and addressable-shard-readback
 branches of parallel/multihost.py that a single-process virtual mesh

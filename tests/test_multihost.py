@@ -32,7 +32,7 @@ def test_mesh_keeps_freq_groups_on_one_host():
     mesh = _mesh()
     assert mesh.shape == {"host": 2, "stream": 2, "freq": 2}
     # Each host row must be a contiguous process-local device group —
-    # that is what keeps the freq psum on ICI instead of DCN.
+    # that is what keeps the freq psum within a host.
     devs = np.asarray(mesh.devices, dtype=object)
     flat_host0 = {d.id for d in devs[0].ravel()}
     flat_host1 = {d.id for d in devs[1].ravel()}
@@ -54,8 +54,9 @@ def _collective_groups(hlo: str):
 @pytest.mark.parametrize("freq", [1, 2])
 def test_collectives_never_span_hosts(freq):
     """The ONLY collective in the compiled step is the freq psum, and
-    its replica groups stay inside one host's device block — DCN carries
-    no tensor traffic, only program-launch coordination."""
+    its replica groups stay inside one host's device block — the network
+    between hosts carries no tensor traffic, only program-launch
+    coordination."""
     from folve_tpu.parallel import multihost as mh
 
     mesh = _mesh(freq=freq)

@@ -133,35 +133,37 @@ def test_sharded_many_channels_einsum(rng, has8):
         np.testing.assert_allclose(np.asarray(y)[i], np.asarray(ref), atol=3e-5)
 
 
-def test_sharded_pallas_kernels_interpret(rng, has8):
-    """The freq-sharded path on the fused Pallas kernels (interpret
-    mode): per-shard forward rows + partial inverse + psum must match
-    the single-device engine."""
-    from folve_tpu.engine import stream as stmod
+@pytest.mark.parametrize("freq_parallel", [2, 4])
+def test_sharded_half_layout_vs_oracle(rng, has8, freq_parallel):
+    """Half-spectrum banks split into 2 or 4 k1-row shards: three chained
+    steps (partial last chunk) equal the float64 oracle per stream."""
+    from folve_tpu.engine.oracle import convolve_oracle, snr_db
+    from folve_tpu.engine.rfft import half_bins
 
-    fragm, size, s, t = 128, 512, 8, 3
-    mesh = make_serving_mesh(8, freq_parallel=2)
+    fragm, size, s, t = 128, 640, 8, 2
+    mesh = make_serving_mesh(8, freq_parallel=freq_parallel)
     banks, irs, h_spec, hist_re, hist_im, tail, max_abs, x, n_valid = _build_inputs(
-        rng, s, t, fragm, size
+        rng, s, 3 * t, fragm, size
     )
-    stmod.set_mac_impl("pallas_interpret")
-    try:
-        # check_vma off: the Pallas INTERPRETER's block extraction trips
-        # the varying-manual-axes rule (unvarying grid indices against
-        # stream-varying operands); the compiled TPU path keeps it on.
-        step = make_sharded_serving_step(mesh, fragm, check_vma=False)
+    assert banks[0].bins == half_bins(2 * fragm)
+    step = make_sharded_serving_step(mesh, fragm)
+    state = (hist_re, hist_im, tail, max_abs)
+    outs = []
+    for r in range(3):
+        nv = n_valid // 3 - (50 if r == 2 else 0)
         args = shard_states_and_bank(
-            mesh, h_spec, hist_re, hist_im, tail, max_abs, x, n_valid
+            mesh, h_spec, *map(np.asarray, state), x[:, r * t : (r + 1) * t], nv
         )
-        _, _, new_tail, _, y = step(*args)
-    finally:
-        stmod.set_mac_impl("auto")
+        *state, y = step(*args)
+        outs.append(np.asarray(y))
+    y = np.concatenate(outs, axis=1)
+    n = 3 * t * fragm - 50
     for i in range(s):
-        st = init_state(banks[i])
-        st2, y_ref = chunk_step(banks[i], st, x[i], int(n_valid[i]))
-        np.testing.assert_allclose(np.asarray(y)[i], np.asarray(y_ref), atol=2e-5)
-        np.testing.assert_allclose(
-            np.asarray(new_tail)[i], np.asarray(st2.tail), atol=2e-5
+        flat = x[i].transpose(0, 2, 1).reshape(-1, 2)[:n]
+        got = y[i].transpose(0, 2, 1).reshape(-1, 2)[:n]
+        assert snr_db(convolve_oracle(irs[i], flat), got) < -90
+        assert float(np.asarray(state[3])[i]) == pytest.approx(
+            float(np.max(np.abs(got))), rel=1e-5
         )
 
 

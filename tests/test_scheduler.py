@@ -458,69 +458,43 @@ def test_two_groups_same_signature_both_stay_fast(rng):
     sched.stop()
 
 
-def test_fused_device_resident_carry(rng):
-    """Single-chip shared-filter batches route through the fused
-    pre-shaped kernel with a device-resident carry: results match
-    chunk_step across two rounds, round 2 gathers rows from the live
-    carry (fused_fast_steps), and a mixed batch (fresh stream joins)
-    re-enters correctly."""
-    from folve_tpu.engine import stream as st
-    from folve_tpu.runtime.scheduler import FusedStateRef, _Job
+@pytest.mark.parametrize("mixed", [False, True])
+def test_steady_state_batch_with_joining_stream(rng, mixed):
+    """Single-device batches across chained rounds: a steady batch of
+    streams, then a round in which a fresh stream joins mid-batch.  Every
+    output and carried state equals per-stream chunk_step."""
+    from folve_tpu.runtime.scheduler import _Job
 
-    size, fragm, streams = 255, 64, 3
-    ir = rng.standard_normal((2, 2, size)).astype(np.float32) / 16
-    bank = compile_filter_bank(ir, fragm=fragm)
-    assert st.fused_serving_supported(bank, 2)
+    size, fragm, streams, t = 255, 64, 3, 2
+    banks = [
+        compile_filter_bank(
+            (rng.standard_normal((2, 2, size)) / 16).astype(np.float32), fragm=fragm
+        )
+        for _ in range(streams if mixed else 1)
+    ]
+    bank_of = [banks[i % len(banks)] for i in range(streams + 1)]
+    xs = rng.standard_normal((3, streams + 1, t, 2, fragm)).astype(np.float32)
+    nv = t * fragm
     sched = DeviceScheduler(max_batch=4, window_s=0.01)
-    xs1 = [rng.standard_normal((2, 2, fragm)).astype(np.float32)
-           for _ in range(streams)]
-    xs2 = [rng.standard_normal((2, 2, fragm)).astype(np.float32)
-           for _ in range(streams)]
-
-    st.set_mac_impl("pallas_interpret")
-    try:
-        jobs = [_Job(bank, init_state(bank), x, 2 * fragm) for x in xs1]
+    states = [init_state(bank_of[i]) for i in range(streams)]
+    got = {}
+    for r in range(3):
+        active = list(range(streams)) + ([streams] if r == 2 else [])
+        if r == 2:
+            states.append(init_state(bank_of[streams]))  # joins mid-batch
+        jobs = [_Job(bank_of[i], states[i], xs[r, i], nv - 5 * i) for i in active]
         sched._execute(jobs)
-        states1, ys1 = zip(*(j.future.result(timeout=60) for j in jobs))
-        assert sched.fused_steps == 1 and sched.fused_fast_steps == 0
-        assert all(isinstance(s, FusedStateRef) for s in states1)
-
-        jobs2 = [_Job(bank, s, x, 2 * fragm) for s, x in zip(states1, xs2)]
-        sched._execute(jobs2)
-        states2, ys2 = zip(*(j.future.result(timeout=60) for j in jobs2))
-        assert sched.fused_fast_steps == 1
-
-        # A fresh stream joining forces the entry (stack) path but must
-        # still produce a correct batch.
-        jobs3 = [_Job(bank, states2[0], xs1[0], 2 * fragm),
-                 _Job(bank, init_state(bank), xs1[1], 2 * fragm)]
-        sched._execute(jobs3)
-        (s3a, y3a), (s3b, y3b) = (j.future.result(timeout=60) for j in jobs3)
-        assert sched.fused_steps == 3 and sched.fused_fast_steps == 1
-    finally:
-        st.set_mac_impl("auto")
-
-    st.set_mac_impl("xla")
-    try:
-        for i in range(streams):
-            state = init_state(bank)
-            state, ry1 = chunk_step(bank, state, xs1[i], 2 * fragm)
-            state, ry2 = chunk_step(bank, state, xs2[i], 2 * fragm)
-            tol = 1e-4 * float(np.max(np.abs(np.asarray(ry2)))) + 1e-5
-            np.testing.assert_allclose(np.asarray(ys1[i]), np.asarray(ry1),
-                                       atol=tol)
-            np.testing.assert_allclose(np.asarray(ys2[i]), np.asarray(ry2),
-                                       atol=tol)
-            if i == 0:
-                state, ry3 = chunk_step(bank, state, xs1[0], 2 * fragm)
-                np.testing.assert_allclose(np.asarray(y3a), np.asarray(ry3),
-                                           atol=tol)
-                # the materialized canonical view of the ref matches too
-                np.testing.assert_allclose(
-                    np.asarray(s3a.tail), np.asarray(state.tail), atol=tol)
-        # fresh stream in jobs3 == first chunk of stream 1's material
-        state = init_state(bank)
-        _, ry = chunk_step(bank, state, xs1[1], 2 * fragm)
-        np.testing.assert_allclose(np.asarray(y3b), np.asarray(ry), atol=tol)
-    finally:
-        st.set_mac_impl("auto")
+        for i, job in zip(active, jobs):
+            states[i], y = job.future.result(timeout=60)
+            got[r, i] = np.asarray(y)
+    assert sched.steps == 3 and sched.batched_jobs == 3 * streams + 1
+    for i in range(streams + 1):
+        st = init_state(bank_of[i])
+        for r in [2] if i == streams else range(3):
+            st, ref = chunk_step(bank_of[i], st, xs[r, i], nv - 5 * i)
+            np.testing.assert_allclose(got[r, i], np.asarray(ref), atol=1e-5)
+        for f in ("hist_re", "hist_im", "tail", "max_abs"):
+            np.testing.assert_allclose(
+                np.asarray(getattr(states[i], f)), np.asarray(getattr(st, f)),
+                atol=1e-5,
+            )

@@ -547,7 +547,7 @@ class TestCliUtilities:
         import sys
 
         fs, src = make_fs(tmp_path)
-        env = {**os.environ, "FOLVE_PLATFORM": "cpu"}
+        env = {**os.environ, "JAX_PLATFORMS": "cpu"}
         r = subprocess.run(
             [sys.executable, "-m", "folve_tpu", "mount",
              "-C", str(tmp_path / "filters"), str(src), "/nonexistent-mnt"],
@@ -579,7 +579,7 @@ class TestCliUtilities:
             [sys.executable, "-m", "folve_tpu",
              "--files-port", "8080", "serve", str(src)],
             capture_output=True, text=True, timeout=120,
-            env={**os.environ, "FOLVE_PLATFORM": "cpu"},
+            env={**os.environ, "JAX_PLATFORMS": "cpu"},
         )
         assert r.returncode != 0
         assert "invalid choice" in r.stderr or "error" in r.stderr
@@ -601,7 +601,7 @@ class TestCliUtilities:
             capture_output=True,
             text=True,
             timeout=120,
-            env={**os.environ, "FOLVE_PLATFORM": "cpu"},
+            env={**os.environ, "JAX_PLATFORMS": "cpu"},
         )
         assert r.returncode == 1
         assert "mount failed" in r.stdout + r.stderr
@@ -634,7 +634,7 @@ class TestServeCommand:
             ],
             stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT,
-            env={**__import__("os").environ, "FOLVE_PLATFORM": "cpu"},
+            env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
         )
         try:
             deadline = time.time() + 120
@@ -680,7 +680,7 @@ class TestServeCommand:
             ],
             capture_output=True,
             timeout=120,
-            env={**os.environ, "FOLVE_PLATFORM": "cpu"},
+            env={**os.environ, "JAX_PLATFORMS": "cpu"},
         )
         assert r.returncode == 0  # parent exits once the daemon forked
         daemon_pid = None
@@ -725,7 +725,7 @@ class TestServeCommand:
             capture_output=True,
             text=True,
             timeout=120,
-            env={**__import__("os").environ, "FOLVE_PLATFORM": "cpu"},
+            env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
         )
         assert r.returncode == 1
         assert "mount failed" in r.stdout + r.stderr

@@ -93,10 +93,9 @@ def _material(rng, n, ch, sub):
 
 
 def _enumerate():
-    lib = None
     try:
         lib = _sf()
-    except Exception:
+    except (Exception, pytest.skip.Exception):  # no oracle: no combinations
         return []
     lib.sf_format_check.argtypes = [ctypes.POINTER(lib.SfInfo)]
     combos = []
